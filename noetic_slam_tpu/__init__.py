@@ -1,4 +1,4 @@
-"""noetic_slam_tpu — TPU-native LiDAR-inertial SLAM + TSDF mapping framework.
+"""noetic_slam_tpu — LiDAR-inertial SLAM + TSDF mapping framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 `noetic-slam` reference stack (DLIO odometry + mapping + dataset ingest):

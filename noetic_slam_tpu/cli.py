@@ -22,6 +22,10 @@ import os
 import sys
 import time
 
+# Scans left out of the after-warmup rate: the first ones compile the
+# odometry step's variants.
+_RATE_SKIP = 10
+
 
 def cmd_info(args) -> int:
     import jax
@@ -58,15 +62,20 @@ def cmd_slam(args) -> int:
     os.makedirs(args.out, exist_ok=True)
     slam = SlamSystem(cfg, enable_tsdf=not args.no_tsdf,
                       enable_loop_closure=not args.no_loop_closure,
+                      loop_radius=args.loop_radius,
                       pipelined=not args.exact_sync)
+    # Machine-readable run summary, merged into the final JSON line.
+    run = {}
     if args.warmup:
-        # Pre-compile the closure stack so no Mosaic/solver compile lands
-        # mid-run (real-time operation; see SlamSystem.warmup docstring).
+        # Pre-compile the closure stack so no solver compile lands mid-run
+        # (real-time operation; see SlamSystem.warmup docstring).
         print("warmup: compiling closure stack...", file=sys.stderr)
         t_w = time.perf_counter()
         slam.warmup()
-        print(f"warmup: {time.perf_counter() - t_w:.1f} s", file=sys.stderr)
+        run["warmup_s"] = time.perf_counter() - t_w
+        print(f"warmup: {run['warmup_s']:.1f} s", file=sys.stderr)
     metrics = SlamMetrics()
+    scan_wall = []              # host clock after each processed scan
 
     t0 = time.perf_counter()
     if args.bag:
@@ -137,8 +146,9 @@ def cmd_slam(args) -> int:
         kf_sync = {"n": 0}
 
         def on_scan(idx, out):
+            scan_wall.append(time.perf_counter())
             metrics.scan_done(float(ds.scan_stamps[idx]),
-                              time.perf_counter() - t0, [0, 0, 0], False)
+                              scan_wall[-1] - t0, [0, 0, 0], False)
             if idx % args.loop_every == 0 and idx > 0:
                 slam.maybe_close_loop()
             if args.progress and idx % 50 == 0:
@@ -157,6 +167,13 @@ def cmd_slam(args) -> int:
             stats = replay_dataset(ds, slam, rate=args.rate,
                                    max_scans=args.max_scans, on_scan=on_scan)
         print("replay:", stats)
+        run["replay_s"] = time.perf_counter() - t0
+        run["scans"] = int(stats["n_scans"])
+        run["scans_per_s"] = run["scans"] / max(run["replay_s"], 1e-9)
+        if len(scan_wall) > 2 * _RATE_SKIP:
+            run["scans_per_s_after_warmup"] = (
+                (len(scan_wall) - 1 - _RATE_SKIP)
+                / (scan_wall[-1] - scan_wall[_RATE_SKIP]))
         gt = (np.column_stack([ds.gt_stamps, ds.gt_poses[:, :, 3]])
               if ds.gt_stamps is not None else None)
     else:
@@ -192,6 +209,7 @@ def cmd_slam(args) -> int:
               f"{n_arch} keyframes archived, "
               f"graph {int(slam.graph.n_nodes)} nodes / "
               f"{int(slam.graph.n_edges)} edges")
+        run["loop_closures"] = int(slam.loop_closures)
 
     traj = slam.flush()
     if len(traj):
@@ -202,6 +220,8 @@ def cmd_slam(args) -> int:
 
             ate = ate_rmse(traj[:, 0], traj[:, 1:4], gt[:, 0], gt[:, 1:4])
             print(f"ATE RMSE vs ground truth: {ate:.4f} m")
+            run["ate_rmse_m"] = float(ate)
+    run["lost_keyframes"] = int(slam.sync_lost_keyframes)
 
     km = KeyframeMap(leaf_size=cfg.map.sparse_leaf_size)
     km.update(slam.odometry.state)
@@ -212,6 +232,7 @@ def cmd_slam(args) -> int:
         surf = slam.surface_points()
         name = ("occupied.ply" if cfg.map_backend == "occupancy"
                 else "tsdf_surface.ply")
+        run["surface_points"] = int(len(surf))
         if len(surf):
             write_ply(os.path.join(args.out, name), surf)
             print(f"{cfg.map_backend} map: {len(surf)} pts -> {name}")
@@ -280,7 +301,7 @@ def cmd_slam(args) -> int:
                                  cloud)
             print("viz -> trajectory.png, map_views.png, map_viewer.html")
 
-    print(json.dumps(metrics.summary()))
+    print(json.dumps({**metrics.summary(), **run}))
     return 0
 
 
@@ -568,6 +589,11 @@ def main(argv=None) -> int:
     ps.add_argument("--mesh", action="store_true",
                     help="extract a surface-nets mesh from the TSDF")
     ps.add_argument("--no-loop-closure", action="store_true")
+    ps.add_argument("--loop-radius", type=float, default=3.0,
+                    help="proximity loop-closure search radius [m]; a "
+                         "revisit closes only if it makes a keyframe within "
+                         "this distance of an old one, and adaptive "
+                         "keyframes sit up to 5 m apart")
     ps.add_argument("--warmup", action="store_true",
                     help="pre-compile the closure stack before ingest "
                          "(real-time runs: no compile lands mid-run)")
@@ -674,8 +700,8 @@ def main(argv=None) -> int:
                                    or args.bag or args.pcap):
         p.error("slam requires --mulran DIR, --bag FILE, --pcap FILE or "
                 "--synthetic SECONDS")
-    # Persistent XLA compilation cache: the ~3 min of warmup/first-step
-    # compiles are paid once per machine+config, not per invocation
+    # Persistent XLA compilation cache: warmup and first-step compiles are
+    # paid once per machine and config, not per invocation
     # (NOETIC_SLAM_NO_CACHE=1 opts out).
     from noetic_slam_tpu.runtime import compile_cache
 

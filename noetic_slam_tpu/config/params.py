@@ -3,7 +3,7 @@
 This is the re-design of the reference's layered rosparam config
 (reference src/dlio/cfg/dlio.yaml:1-45, src/dlio/cfg/params.yaml:1-65, read by
 src/dlio/src/dlio/odom.cc:165-302). Every tunable the reference exposes has a
-field here with the same default; TPU-specific capacity/padding policies live
+field here with the same default; accelerator capacity/padding policies live
 in ``CapacityConfig`` (the reference has dynamic containers instead).
 
 Configs are frozen dataclasses so they can be closed over by jitted functions
@@ -79,12 +79,12 @@ class GicpConfig:
     rotation_epsilon: float = 0.01
     init_lambda_factor: float = 1e-9
     lm_max_iterations: int = 10        # inner LM lambda-search iterations
-    # NN engine for correspondences/covariances: "brute" = tiled MXU
-    # brute force (fastest on TPU: contiguous compute beats random gathers);
-    # "grid" = bucketed grid index (fastest on CPU / very large targets).
+    # NN engine for correspondences/covariances: "brute" = tiled brute
+    # force (on the GPU the fused kernel of ops/pallas/nn_kernel.py);
+    # "grid" = bucketed grid index (ops/gridnn.py).
     nn_engine: str = "brute"
     # Covariance estimator: "radius" = Gaussian radius-weighted moments via
-    # matmuls (3x faster on TPU; identical normals, hence identical PLANE-
+    # matmuls (no top_k or gathers; identical normals, hence identical PLANE-
     # regularized covariances); "knn" = the reference's exact k-NN
     # neighborhoods (nano_gicp.cc:330-392).
     cov_engine: str = "radius"
@@ -144,8 +144,7 @@ class TsdfConfig:
     carving_samples: int = 16          # free-space samples per ray
     scan_block_cap: int = 4096         # max distinct blocks touched per scan
                                        # (per-scan work buffer; overflow
-                                       # blocks are dropped and counted.
-                                       # Kernel grid cost ~0.24 us/entry —
+                                       # blocks are dropped and counted;
                                        # raise for long-range outdoor
                                        # carving, lower for indoor)
 
@@ -170,7 +169,7 @@ class OccupancyConfig:
 
 @dataclass(frozen=True)
 class CapacityConfig:
-    """Static-shape capacities (TPU padding policy; no reference equivalent —
+    """Static-shape capacities (padding policy; no reference equivalent —
     the reference uses dynamic std/PCL containers)."""
     max_points: int = 32768            # raw scan capacity after intake
     max_ds_points: int = 8192          # after voxel downsample (GICP source)

@@ -3,7 +3,7 @@
 The reference vendors an OpenGL/GLFW interactive viewer
 (src/ouster/ouster-sdk/ouster_viz/, ~6.5k LoC: point cloud rendering with
 palette coloring, 2D range/signal image strips, camera orbit/dolly). A GL
-window is useless on a headless TPU pod, so this module provides the same
+window is useless on a headless accelerator host, so this module provides the same
 *products* in forms that fit the deployment:
 
 - ``render_cloud``: dependency-free numpy z-buffer point splatting with a

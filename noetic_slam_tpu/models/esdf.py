@@ -4,7 +4,7 @@ The reference README's map-backend list includes Voxblox (reference
 README.md:30-40; package absent from the checkout — SURVEY.md §0), whose
 distinguishing capability over plain TSDF fusion is the incremental
 Euclidean signed distance field consumed by planners. This module provides
-that output re-designed for TPU:
+that output re-designed for the accelerator:
 
 - **Dense region query, not an incremental global field.** Voxblox
   maintains a global ESDF layer updated by propagation queues (pointer

@@ -1,7 +1,7 @@
 """Map maintenance nodes: sparse keyframe map + dense map recorder.
 
-TPU-native equivalents of the reference's two mapping consumers, expressed
-as in-program composition instead of topic subscribers:
+Accelerator-side equivalents of the reference's two mapping consumers,
+expressed as in-program composition instead of topic subscribers:
 
 - ``KeyframeMap`` ~ dlio::MapNode (src/dlio/src/dlio/map.cc:15-111): keeps
   the voxel-filtered union of keyframe clouds, periodic publish becomes an

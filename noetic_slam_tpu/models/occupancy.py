@@ -1,4 +1,4 @@
-"""Occupancy-grid map backend (Octomap class), TPU-native.
+"""Occupancy-grid map backend (Octomap class) in JAX.
 
 The reference README describes a ``tsdf_map`` node selecting between CHAD
 TSDF / Octomap / Voxblox / VDBFusion backends (reference README.md:20-47,
@@ -7,9 +7,9 @@ TSDF / Octomap / Voxblox / VDBFusion backends (reference README.md:20-47,
 occupancy-grid alternative, consuming the same world-frame deskewed cloud
 stream (src/dliomapping/dliomapping.cpp:44).
 
-Octomap's behavior, re-expressed for TPU (no octree — pointer trees are
-hostile to SIMD/XLA; spatial hierarchy is replaced by the same block-hashed
-sorted directory as the TSDF backend, models/tsdf.py):
+Octomap's behavior, re-expressed for an accelerator (no octree — pointer
+trees are hostile to SIMD/XLA; spatial hierarchy is replaced by the same
+block-hashed sorted directory as the TSDF backend, models/tsdf.py):
 
 - per-voxel log-odds L, updated additively: endpoint voxels get ``l_hit``
   (> 0), ray free-space samples get ``l_miss`` (< 0) — the standard
@@ -93,16 +93,11 @@ def _beam_samples(cfg: OccupancyConfig, points: Array, valid: Array,
 
 
 def _integrate_deltas(cfg: OccupancyConfig, state: OccupancyState,
-                      pos: Array, delta: Array,
-                      use_kernel: bool | None = None,
-                      interpret: bool = False) -> OccupancyState:
+                      pos: Array, delta: Array) -> OccupancyState:
     """Fuse one batch of (position, log-odds delta) samples — the same
     sort/runs/join skeleton as tsdf._integrate_samples with an additive
-    clamped payload (see module docstring). On TPU the payload update runs
-    in the Pallas log-odds kernel (ops/pallas/tsdf_kernel.logodds_accumulate,
-    same block decomposition as the TSDF accumulate); elsewhere the XLA
-    scatter-add + full clamp (identical results — the clamp is idempotent
-    on untouched rows)."""
+    clamped payload (see module docstring): scatter-add of the deltas, then
+    the full clamp (idempotent on untouched rows)."""
     C = state.logodds.shape[0]
     S = pos.shape[0]
     vx = jnp.floor(pos / cfg.voxel_size).astype(jnp.int32)
@@ -158,41 +153,7 @@ def _integrate_deltas(cfg: OccupancyConfig, state: OccupancyState,
     slot_cand = jnp.where(hit, slot_probe,
                           jnp.where(ok_new, slot_new, -1))
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from noetic_slam_tpu.ops.pallas.tsdf_kernel import (
-            _CHUNK,
-            logodds_accumulate,
-        )
-
-        # Kernel ordering contract (tsdf_kernel docstring): padding entries
-        # (cnt = 0) first, mapped to the FIRST real row; real entries in
-        # ascending row order.
-        real = (slot_cand >= 0) & (cnt > 0)
-        sort_key = jnp.where(real, slot_cand, -1)
-        order = jnp.argsort(sort_key, stable=True)
-        rows_o = sort_key[order]
-        n_pad = jnp.sum(rows_o < 0)
-        first_real = rows_o[jnp.clip(n_pad, 0, A - 1)]
-        first_real = jnp.maximum(first_real, 0)      # all-padding case
-        rows = jnp.where(rows_o < 0, first_real, rows_o)
-        starts = jnp.where(rows_o < 0, 0, start[order])
-        cnts = jnp.where(rows_o < 0, 0, cnt[order])
-        pad_s = (-S) % _CHUNK       # kernel stream-chunk size, not 512
-        if pad_s:
-            iv_p = jnp.concatenate([iv_s, jnp.zeros((pad_s,), iv_s.dtype)])
-            dl_p = jnp.concatenate([dl_s, jnp.zeros((pad_s,), dl_s.dtype)])
-        else:
-            iv_p, dl_p = iv_s, dl_s
-        lo2 = logodds_accumulate(state.logodds, rows, starts, cnts,
-                                 iv_p, dl_p, cfg.l_min, cfg.l_max,
-                                 interpret=interpret)
-        return state._replace(dir_keys=keys2, dir_slots=slots2,
-                              num_blocks=num2, dropped=dropped2,
-                              logodds=lo2)
-
-    # XLA fallback: scatter-add the deltas, then the scan-granularity clamp
+    # scatter-add the deltas, then the scan-granularity clamp
     sample_slot = jnp.where(
         (gk_s != _KEY_PAD) & (blk_rank < A),
         slot_cand[jnp.clip(blk_rank, 0, A - 1)], -1)
@@ -222,9 +183,8 @@ def integrate_signed(cfg: OccupancyConfig, state: OccupancyState,
     keyframe-archive volume primitive (runtime/archive.py; TSDF counterpart
     tsdf.integrate_signed). Exact inversion requires an unclamped config
     (``l_min``/``l_max`` at ±1e30: jnp.clip with huge bounds is the
-    identity, and unlike the TSDF renorm it is division-free, so no kernel
-    variant is needed); occupancy probability consumers clamp at read time
-    instead."""
+    identity, and unlike the TSDF renorm it is division-free); occupancy
+    probability consumers clamp at read time instead."""
     pos, delta = _beam_samples(cfg, points, valid, origin)
     return _integrate_deltas(cfg, state, pos, delta * sign)
 

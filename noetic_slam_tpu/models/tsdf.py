@@ -1,4 +1,4 @@
-"""Block-hashed TSDF fusion backend (CHAD / Voxblox class), TPU-native.
+"""Block-hashed TSDF fusion backend (CHAD / Voxblox class) in JAX.
 
 The reference repo's README describes a ``tsdf_map`` node with CHAD TSDF /
 Octomap / Voxblox / VDBFusion backends (reference README.md:20-47) but the
@@ -6,7 +6,7 @@ package is absent from the checkout (SURVEY.md §0); only its data contract is
 visible: it consumed the world-frame deskewed cloud stream
 (src/dliomapping/dliomapping.cpp:44). This module implements that component
 from the published behavior of such systems — projective TSDF integration
-into a block-hashed voxel grid — re-designed for TPU:
+into a block-hashed voxel grid — re-designed for an accelerator:
 
 - **No pointer hash table.** Blocks live in a *sorted directory*
   (keys (C,), payload slots (C,)); insertion is a concat + sort + unique
@@ -15,11 +15,8 @@ into a block-hashed voxel grid — re-designed for TPU:
 - **One payload-carrying sort per scan.** All per-sample work hangs off a
   single ``lax.sort((block_key, intra_voxel, w, w*sdf), num_keys=1)``: the
   sorted order yields the unique-block list (allocation) and contiguous
-  per-block sample ranges (the Pallas kernel's work decomposition).
-  Measured on-chip this replaced the original join-heavy pipeline (8 sorts
-  + ~15 random 753k-gathers, 220 ms/scan); with the Pallas accumulate
-  kernel (ops/pallas/tsdf_kernel.py) integrate costs ~10 ms/scan for the
-  full 753k-sample carve path.
+  per-block sample ranges, and replaces a join-heavy design of several
+  sorts plus random gathers over the ~750k-sample stream.
 - **Sum-form payload.** Voxels store (Σw·d, Σw) rather than (mean d, w):
   fusing a scan is then two scatter-ADDs with no gather of old state. The
   reference-class clamped weighted average is recovered EXACTLY by the
@@ -98,8 +95,8 @@ def _lookup(state: TsdfState, keys: Array) -> Array:
     """Sorted-directory lookup: key -> payload slot (or -1).
 
     Small query batches: binary search. Large batches dispatch to the
-    sort-merge join — searchsorted's serial per-query binary search costs
-    ~100 ms at 750k queries on TPU, the radix-sort join ~10 ms.
+    sort-merge join, which replaces ~750k serial per-query binary searches
+    with sorts.
     """
     if keys.size > 16384:
         return _lookup_join(state.dir_keys, state.dir_slots, keys)
@@ -203,13 +200,11 @@ def _ray_samples(cfg: TsdfConfig, points: Array, valid: Array, origin: Array):
 
 
 def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Array,
-                       sdf: Array, w: Array,
-                       use_kernel: bool | None = None,
-                       interpret: bool = False) -> TsdfState:
+                       sdf: Array, w: Array) -> TsdfState:
     """Fuse one batch of ray samples.
 
-    Structure (chosen from on-chip measurements; every step is a cheap
-    primitive, no random gathers from the 134 MB payload):
+    Structure (every step is a cheap primitive, no random gathers from the
+    payload):
 
     1. ONE ``lax.sort`` keyed (block_key, intra_voxel) carrying (w, w·d) —
        every touched block's samples become one contiguous range.
@@ -217,14 +212,9 @@ def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Array,
        blocks + their sample ranges come from gathers at those offsets.
        Sorted-directory probe (merge join) + merge allocates unseen blocks
        (carve samples allocate too — matches Voxblox's clearing behavior).
-    3. Payload update:
-       - TPU: ops.pallas.tsdf_kernel.block_accumulate — one grid step per
-         touched block, one-hot MXU contraction per 512-sample chunk, with
-         the max_weight renormalisation folded into the row write. Replaces
-         the two 753k-update scatter-adds (15.3 ms) + full-payload renorm
-         (0.9 ms) measured on the previous design.
-       - elsewhere: XLA scatter-adds into the sum-form payload + exact
-         full-payload clamp (reference semantics, identical results).
+    3. Payload update: scatter-adds into the sum-form payload (atomic adds
+       on the GPU, so per-voxel sums re-associate from run to run), then
+       the exact full-payload clamp.
 
     The sum-form payload (Σw·d, Σw with clamp-rescale) EXACTLY reproduces
     the clamped-weighted-mean recursion:
@@ -243,9 +233,8 @@ def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Array,
     sdf_c = jnp.clip(sdf, -cfg.truncation, cfg.truncation)
 
     # 1. block-major sort carrying the accumulands. Intra-block voxel order
-    # is irrelevant to both payload-update paths (the kernel's one-hot
-    # contraction and scatter-add are order-insensitive), so ivox rides as
-    # payload, not as a second key. lax.sort is a fixed comparator network:
+    # is irrelevant to the scatter-add, so ivox rides as payload, not as a
+    # second key. lax.sort is a fixed comparator network:
     # deterministic for identical inputs even with equal keys.
     gk_s, iv_s, w_s, ws_s = jax.lax.sort(
         (gk, ivox, w, w * sdf_c), num_keys=1)
@@ -275,8 +264,7 @@ def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Array,
     start = jnp.minimum(cand_pos, pad_start)
     cnt = jnp.clip(jnp.minimum(pos_arr[1:], pad_start) - start, 0, S)
 
-    # 2c. directory probe (sort-merge join; vectorized searchsorted costs
-    # ~0.5 ms per 4k queries on TPU) + merge of new rows.
+    # 2c. directory probe (sort-merge join) + merge of new rows.
     slot_probe = _lookup_join(state.dir_keys, state.dir_slots, cand)
     hit = slot_probe >= 0
     is_new = (~hit) & (cand != _KEY_PAD)
@@ -298,43 +286,7 @@ def _integrate_samples(cfg: TsdfConfig, state: TsdfState, pos: Array,
     slot_cand = jnp.where(hit, slot_probe,
                           jnp.where(ok_new, slot_new, -1))
 
-    # 3. payload update.
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if use_kernel:
-        from noetic_slam_tpu.ops.pallas.tsdf_kernel import (
-            _CHUNK,
-            block_accumulate,
-        )
-
-        # Kernel ordering contract: padding entries (cnt = 0) first and
-        # mapped to the FIRST real row (so their row-group is shared with
-        # the first real step), real entries in ascending row order.
-        real = (slot_cand >= 0) & (cnt > 0)
-        sort_key = jnp.where(real, slot_cand, -1)
-        order = jnp.argsort(sort_key, stable=True)
-        rows_o = sort_key[order]
-        n_pad = jnp.sum(rows_o < 0)
-        first_real = rows_o[jnp.clip(n_pad, 0, A - 1)]
-        first_real = jnp.maximum(first_real, 0)      # all-padding case
-        rows = jnp.where(rows_o < 0, first_real, rows_o)
-        starts = jnp.where(rows_o < 0, 0, start[order])
-        cnts = jnp.where(rows_o < 0, 0, cnt[order])
-        pad_s = (-S) % _CHUNK       # kernel stream-chunk size, not 512
-        if pad_s:
-            iv_p = jnp.concatenate([iv_s, jnp.zeros((pad_s,), iv_s.dtype)])
-            w_p = jnp.concatenate([w_s, jnp.zeros((pad_s,), w_s.dtype)])
-            ws_p = jnp.concatenate([ws_s, jnp.zeros((pad_s,), ws_s.dtype)])
-        else:
-            iv_p, w_p, ws_p = iv_s, w_s, ws_s
-        weight2, wsum2 = block_accumulate(
-            state.weight, state.wsum, rows, starts, cnts, iv_p, w_p, ws_p,
-            cfg.max_weight, interpret=interpret)
-        return state._replace(dir_keys=keys2, dir_slots=slots2,
-                              num_blocks=num2, dropped=dropped2,
-                              wsum=wsum2, weight=weight2)
-
-    # XLA fallback: per-sample slot routing + scatter-adds + full clamp.
+    # 3. payload update: per-sample slot routing, scatter-adds, full clamp.
     sample_slot = jnp.where(
         (gk_s != _KEY_PAD) & (blk_rank < A),
         slot_cand[jnp.clip(blk_rank, 0, A - 1)], -1)
@@ -369,10 +321,7 @@ def integrate(cfg: TsdfConfig, state: TsdfState, points: Array,
 
     The consumer role of the absent tsdf_map node: integrate the stream that
     dliomapping.cpp:44 subscribed to. Single straight-line pass built around
-    one payload-carrying sort + two scatter-adds (see _integrate_samples);
-    ~25 ms/scan on one chip for the full 750k-sample carve path (the prior
-    join-heavy design measured 220 ms — dominated by 753k-element random
-    gathers, which this structure has none of).
+    one payload-carrying sort + two scatter-adds (see _integrate_samples).
     """
     pos, sdf, w = _ray_samples(cfg, points, valid, origin)
     return _integrate_samples(cfg, state, pos, sdf, w)

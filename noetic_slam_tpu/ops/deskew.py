@@ -6,9 +6,9 @@ composed with the baselink<-lidar extrinsic:
 
     p_world = R_frame @ (R_ext @ p + t_ext) + p_frame
 
-On TPU this is a pure gather + fused elementwise computation over the whole
-padded scan — XLA maps it onto the VPU in one pass; no kernel is needed
-because it is memory-bound and fully fuses with neighboring ops.
+This is a pure gather + fused elementwise computation over the whole
+padded scan — XLA runs it in one pass; no kernel is needed because it is
+memory-bound and fully fuses with neighboring ops.
 """
 
 from __future__ import annotations
@@ -37,11 +37,12 @@ def deskew_points(scan: PreparedScan, frames_q: Array, frames_p: Array,
     """
     q = frames_q[scan.frame_idx]
     p = frames_p[scan.frame_idx]
-    # HIGHEST precision: TPU default matmul truncates f32 operands to
-    # bf16 (8-bit mantissa) — a 30 m coordinate quantizes to ~0.1 m,
-    # which silently degrades registration on weakly-constrained
-    # scenes (platform-divergent drift found in the r5 drift soak:
-    # the SAME scenario tracked on CPU and ran away on chip)
+    # HIGHEST precision: a default-precision f32 matmul may round its
+    # operands (bf16 keeps 8 mantissa bits, TF32 on the GPU 11) — a 30 m
+    # coordinate then quantizes to centimeters or worse, which silently
+    # degrades registration on weakly-constrained scenes (platform-
+    # divergent drift: the SAME scenario tracked on CPU and ran away on
+    # an accelerator)
     local = jnp.dot(scan.xyz, R_ext.T,
                     precision=jax.lax.Precision.HIGHEST) + t_ext
     world = quat_rotate(q, local) + p

@@ -1,4 +1,4 @@
-"""GICP scan-to-map registration engine — TPU-native NanoGICP equivalent.
+"""GICP scan-to-map registration engine — a NanoGICP equivalent in JAX.
 
 Re-designs the reference registration stack (nano_gicp + LsqRegistration,
 src/dlio/src/nano_gicp/nano_gicp.cc:52-394 and lsq_registration.cc:52-231)
@@ -7,12 +7,12 @@ as batched, statically-shaped JAX computations:
 - ``plane_covariances``: per-point kNN covariance with PLANE regularization
   (eigenvalues -> (1, 1, 1e-3); nano_gicp.cc:330-392) via batched ``eigh``
   instead of per-point JacobiSVD, plus the source-density metric.
-- ``update_correspondences``: 1-NN on the MXU (ops.neighbors) + per-pair
+- ``update_correspondences``: 1-NN (ops.neighbors) + per-pair
   Mahalanobis M = (C_B + R C_A R^T)^-1 as a closed-form 3x3 inverse
   (nano_gicp.cc:206-245; the reference's 4x4 inverse reduces to this since
   row/col 3 of the covariances are zero).
-- ``linearize``: H (6x6) / b (6) accumulation as einsum segment-sums on the
-  MXU (nano_gicp.cc:248-302) — replaces the OpenMP reduction.
+- ``linearize``: H (6x6) / b (6) accumulation as einsum segment-sums
+  (nano_gicp.cc:248-302) — replaces the OpenMP reduction.
 - ``gicp_align``: the Levenberg-Marquardt trust-region loop
   (lsq_registration.cc:108-229) under ``lax.while_loop`` with the exact
   rho/lambda/nu schedule and convergence tests.
@@ -86,8 +86,8 @@ def _smallest_eigvec_sym3(m: Array) -> Array:
 
     Closed form (no LAPACK): trigonometric eigenvalues (Smith's algorithm)
     + null-space cross products — replaces the reference's per-point
-    JacobiSVD (nano_gicp.cc:367) at VPU rate instead of batched eigh
-    (which lowers to a slow loop on TPU).
+    JacobiSVD (nano_gicp.cc:367) as elementwise math instead of a
+    batched eigh.
     """
     a00, a01, a02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     a11, a12, a22 = m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]
@@ -163,7 +163,7 @@ def plane_covariances(xyz: Array, valid: Array, k: int = 16,
     # PLANE regularization: replace singular values with (1, 1, 1e-3), i.e.
     # V diag(1,1,1e-3) V^T = I - (1 - 1e-3) n n^T with n the smallest-
     # eigenvalue direction (the local surface normal). Closed form — no
-    # LAPACK eigh (slow on TPU).
+    # batched eigh.
     n = _smallest_eigvec_sym3(cov)
     eye = jnp.eye(3, dtype=cov.dtype)
     reg = eye - (1.0 - 1e-3) * n[..., :, None] * n[..., None, :]
@@ -190,7 +190,7 @@ def radius_covariances(xyz: Array, valid: Array, radius: float = 0.5,
 
         s_i = sum_j w_ij,  m_i = sum_j w_ij x_j,  S_i = sum_j w_ij x_j x_j^T
 
-    as three MXU matmuls over the d^2 tiles — no top_k, no gathers. The
+    as three matmuls over the d^2 tiles — no top_k, no gathers. The
     density metric is 2 sigma^2 / (effective neighbor count s_i), which
     tracks the local spacing^2 like the reference's kNN statistic
     (nano_gicp.cc:346-389) on uniform AND gradient sampling (pinned by
@@ -279,9 +279,9 @@ def update_correspondences(src_xyz: Array, src_valid: Array, src_cov6: Array,
 
     With ``target_grid`` (ops.gridnn.Grid over tgt_xyz, cell >= the max
     correspondence distance) the search is grid-bucketed — exact for the
-    thresholded correspondences GICP keeps; otherwise brute-force MXU NN."""
-    # HIGHEST: bf16-default TPU matmul quantizes ~30 m coords to
-    # ~0.1 m (see deskew.transform_cloud note)
+    thresholded correspondences GICP keeps; otherwise brute-force NN."""
+    # HIGHEST: a reduced-precision matmul (TF32 keeps 10 mantissa
+    # bits) quantizes ~30 m coords to centimeters (see deskew.transform_cloud)
     transed = jnp.dot(src_xyz, T[:3, :3].T,
                       precision=jax.lax.Precision.HIGHEST) + T[:3, 3]
     if target_grid is not None:
@@ -313,10 +313,10 @@ def linearize(src_xyz: Array, tgt_xyz: Array, corr: Correspondences,
     """Masked H/b/error accumulation at transform T (nano_gicp.cc:248-302).
 
     J = [skew(T p_src) | -I] (rows 0..2); H = sum J^T M J, b = sum J^T M e,
-    e = p_tgt - T p_src. Accumulated in one einsum pass (MXU-friendly).
+    e = p_tgt - T p_src. Accumulated in one einsum pass.
     """
-    # HIGHEST: bf16-default TPU matmul quantizes ~30 m coords to
-    # ~0.1 m (see deskew.transform_cloud note)
+    # HIGHEST: a reduced-precision matmul (TF32 keeps 10 mantissa
+    # bits) quantizes ~30 m coords to centimeters (see deskew.transform_cloud)
     transed = jnp.dot(src_xyz, T[:3, :3].T,
                       precision=jax.lax.Precision.HIGHEST) + T[:3, 3]
     e = tgt_xyz[corr.tgt_idx] - transed               # (N, 3)
@@ -337,8 +337,8 @@ def compute_error(src_xyz: Array, tgt_xyz: Array, corr: Correspondences,
                   T: Array) -> Array:
     """Sum of Mahalanobis errors at T with fixed correspondences
     (nano_gicp.cc:305-326)."""
-    # HIGHEST: bf16-default TPU matmul quantizes ~30 m coords to
-    # ~0.1 m (see deskew.transform_cloud note)
+    # HIGHEST: a reduced-precision matmul (TF32 keeps 10 mantissa
+    # bits) quantizes ~30 m coords to centimeters (see deskew.transform_cloud)
     transed = jnp.dot(src_xyz, T[:3, :3].T,
                       precision=jax.lax.Precision.HIGHEST) + T[:3, 3]
     e = tgt_xyz[corr.tgt_idx] - transed

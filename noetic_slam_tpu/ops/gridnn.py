@@ -1,7 +1,7 @@
 """Grid-bucketed nearest-neighbor search — the production NN engine.
 
-Brute-force MXU NN (ops/neighbors.py) is robust but O(Nq x Nt) with a K=3
-contraction the MXU can't fill. This module implements the TPU-idiomatic
+Brute-force NN (ops/neighbors.py) is robust but O(Nq x Nt) with a K=3
+contraction no matrix unit can fill. This module implements the
 alternative called out in SURVEY.md §7 ("voxel-hash bucketed NN"):
 
 - **Build** (once per target change, e.g. per submap swap): target points

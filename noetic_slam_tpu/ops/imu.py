@@ -139,8 +139,8 @@ def quat_prefix(q0: Array, omegas: Array, dts: Array) -> Array:
     The per-interval delta quaternions compose by the (associative)
     Hamilton product, so the K-step serial recurrence becomes a log-depth
     ``lax.associative_scan``; normalization commutes with the product
-    (|a ⊗ b| = |a||b|) and is applied once at the end. TPU: ~15 us/step
-    of serial lax.scan overhead -> the whole prefix in ~0.1 ms.
+    (|a ⊗ b| = |a||b|) and is applied once at the end, replacing K
+    serial lax.scan steps with log2(K) levels.
 
     Args: q0 (4,), omegas (K, 3), dts (K,). Returns (K+1, 4) normalized.
     """

@@ -1,9 +1,9 @@
-"""Nearest-neighbor search on TPU — the kd-tree replacement.
+"""Nearest-neighbor search on the accelerator — the kd-tree replacement.
 
 The reference leans on a nanoflann kd-tree for every NN query
-(src/dlio/include/nano_gicp/nanoflann.h, nanoflann_adaptor.h:57-108); pointer
-chasing is hostile to TPUs, so this module recasts NN as *tiled brute-force
-distance minimization on the MXU*:
+(src/dlio/include/nano_gicp/nanoflann.h, nanoflann_adaptor.h:57-108);
+pointer chasing maps badly onto SIMD hardware, so this module recasts NN as
+*tiled brute-force distance minimization*:
 
     d^2(q, t) = |q-c|^2 - 2 (q-c)·(t-c) + |t-c|^2
 
@@ -13,10 +13,8 @@ when world coordinates are kilometers from the origin. Invalid/padded points
 sit at a far sentinel (ops.pointcloud.SENTINEL) and lose every comparison.
 
 Queries are processed in chunks (bounding the live distance tile) with a
-running min / running top-k across target chunks — O(Nq*Nt) FLOPs but MXU-rate,
-which beats a kd-tree's O(Nq log Nt) host-rate traversal by orders of
-magnitude at the sizes DLIO uses (10^4 x 10^5). A Pallas fused kernel for the
-same contraction lives in ops/pallas/nn_kernel.py.
+running min / running top-k across target chunks. On the GPU, ``nn1`` runs
+the fused, tile-pruned Pallas kernel in ops/pallas/nn_kernel.py instead.
 
 Exact squared distances for the selected candidates are recomputed by direct
 subtraction (no cancellation) before returning.
@@ -39,11 +37,11 @@ def _center(query: Array, q_valid: Array) -> Array:
 
 
 def _sq_dists(qc: Array, tc: Array) -> Array:
-    """(Cq,3), (Ct,3) -> (Cq,Ct) squared distances via MXU expansion.
+    """(Cq,3), (Ct,3) -> (Cq,Ct) squared distances via the expansion.
 
-    Full f32 precision is mandatory: TPU matmuls default to bf16 inputs,
-    whose ~0.4% relative error on |q|^2-scale values would swamp the
-    correspondence-distance thresholds.
+    Full f32 precision is mandatory: a reduced-precision matmul (bf16, or
+    TF32 on the GPU) has ~1e-3 relative error on |q|^2-scale values, which
+    would swamp the correspondence-distance thresholds.
     """
     cross = jnp.dot(qc, tc.T, preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.HIGHEST)
@@ -66,6 +64,24 @@ def _pad_to_multiple(x: Array, chunk: int) -> Array:
     return x
 
 
+# Kernel tiles, the fastest of a sweep on an H100 at 8192 x 65536 and
+# 8192 x 262144 (scripts/bench_nn.py): 16-query tiles give 512 programs at
+# the 8192-point GICP source (about four per SM) and tight tile boxes for
+# the pruning; 512-target tiles amortize the visit loop.
+Q_TILE = 16
+T_TILE = 512
+
+
+def on_gpu() -> bool:
+    """Whether the computation being traced is placed on a GPU: the
+    platform of ``jax.default_device`` when one is set, else the default
+    backend."""
+    dev = jax.config.jax_default_device
+    if dev is None:
+        return jax.default_backend() == "gpu"
+    return (dev if isinstance(dev, str) else dev.platform) in ("gpu", "cuda")
+
+
 def nn1(query: Array, target: Array, t_count: Array | None = None,
         max_dist: Array | float | None = None, *,
         query_chunk: int = 1024, target_chunk: int = 8192
@@ -74,35 +90,35 @@ def nn1(query: Array, target: Array, t_count: Array | None = None,
     target point. Replaces nanoflann nearestKSearch(pt, 1, ...) as used in
     GICP correspondence search (nano_gicp.cc:225-230).
 
-    Dispatches to the fused Pallas kernel on TPU (distance + argmin without
-    leaving VMEM) when shapes tile cleanly; XLA path otherwise/elsewhere.
-    ``max_dist`` (optional, may be traced) lets the kernel prune target
-    tiles beyond the radius the caller will threshold at anyway — queries
-    with no neighbor inside it return sqd >= max_dist^2 (index undefined).
-    Returns (idx (Nq,) int32, sqd (Nq,) float32).
+    On the GPU this runs the fused Pallas kernel (``nn1_kernel``); elsewhere
+    the XLA path. ``max_dist`` (optional, may be traced) lets the kernel
+    prune target tiles beyond the radius the caller will threshold at
+    anyway — queries with no neighbor inside it return sqd >= max_dist^2
+    (index undefined). Returns (idx (Nq,) int32, sqd (Nq,) float32).
     """
-    if (jax.default_backend() == "tpu" and query.shape[0] % 128 == 0
-            and target.shape[0] % 512 == 0):
-        from noetic_slam_tpu.ops.pallas.nn_kernel import nn1_fused
-
-        # (128, 1024) tiles: measured fastest on v5e at 8k x 64k with the
-        # best-first visit-list kernel (~1.5 ms vs ~3.7 ms for the old
-        # cond-per-tile scan at 256/512) — small query tiles give tight
-        # bounding boxes (better pruning), large target tiles amortize the
-        # per-visit loop overhead. Halve until the caller shape divides.
-        def _tile(n, cap):
-            t = cap
-            while n % t:
-                t //= 2
-            return t
-
-        return nn1_fused(query, target, t_count, max_dist,
-                         q_tile=_tile(query.shape[0], 128),
-                         t_tile=_tile(target.shape[0], 1024))
+    if on_gpu():
+        return nn1_kernel(query, target, t_count, max_dist)
     # XLA path: exact full search (the cap is an optimization, not part of
     # the contract); callers threshold on sqd themselves.
     return _nn1_xla(query, target, t_count, query_chunk=query_chunk,
                     target_chunk=target_chunk)
+
+
+def nn1_kernel(query: Array, target: Array, t_count: Array | None = None,
+               max_dist: Array | float | None = None, *,
+               interpret: bool = False) -> tuple[Array, Array]:
+    """``nn1`` through the fused kernel: pads both clouds to tile
+    multiples with far rows (padding targets lie beyond ``t_count`` and are
+    never matched) and trims the result back to the caller's queries."""
+    from noetic_slam_tpu.ops.pallas.nn_kernel import nn1_fused
+
+    nq = query.shape[0]
+    if t_count is None:
+        t_count = jnp.int32(target.shape[0])
+    idx, sqd = nn1_fused(_pad_to_multiple(query, Q_TILE),
+                         _pad_to_multiple(target, T_TILE), t_count, max_dist,
+                         q_tile=Q_TILE, t_tile=T_TILE, interpret=interpret)
+    return idx[:nq], sqd[:nq]
 
 
 @partial(jax.jit, static_argnames=("query_chunk", "target_chunk"))

@@ -156,7 +156,7 @@ def voxel_downsample(xyz: Array, valid: Array, res: float,
                      out_capacity: int) -> tuple[Array, Array, Array]:
     """Voxel-grid centroid downsampling (PCL VoxelGrid semantics).
 
-    Deterministic on TPU: points are keyed by voxel coordinate relative to the
+    Deterministic: points are keyed by voxel coordinate relative to the
     cloud minimum, sorted by key, and reduced with a segment mean. Voxel
     coordinates are clamped to a 1024^3 local grid (256 m at 0.25 m leaves),
     matching the practical extent of a single LiDAR scan.

@@ -1,7 +1,7 @@
 """Batched multi-sequence odometry — data parallelism over bags.
 
 BASELINE.json's scaling config 5 ("multi-host pod slice: city-scale
-multi-bag mapping") maps onto TPU as a *batch axis*: the odometry step is a
+multi-bag mapping") maps onto the device mesh as a *batch axis*: the odometry step is a
 pure function of (state, input), so B independent sequences run as one
 ``vmap``-ed step over stacked state pytrees, and the batch axis shards
 across hosts/devices with a ``NamedSharding`` — XLA inserts no collectives

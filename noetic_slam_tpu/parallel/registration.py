@@ -1,7 +1,7 @@
 """Distributed GICP registration over a device mesh.
 
 Shards the scan-to-map NN search and the normal-equation reduction across
-chips — the TPU-native replacement for the reference's single-host OpenMP
+chips — the replacement for the reference's single-host OpenMP
 parallel-for over correspondences (nano_gicp.cc:219-299):
 
 - target (submap) points+covariances are sharded along the ``map`` axis;
@@ -13,11 +13,9 @@ parallel-for over correspondences (nano_gicp.cc:219-299):
   ``pmin`` of the winning device id, then a ``psum`` of the winner-masked
   payload (point + covariance) — exactly one device contributes per query,
   so every collective is an all-reduce whose per-device traffic is flat in
-  device count. (The previous design all-gathered the full candidate
-  payload: every device received O(ndev) bytes per query —
-  SCALING_r03 measured per-align recv growing 1.3/3.9/9.2 MB at
-  D = 2/4/8 — which caps scaling efficiency long before the BASELINE
-  >= 70 % multi-host target.)
+  device count. (An all-gather of the full candidate payload would have
+  every device receive O(ndev) bytes per query, which caps scaling
+  efficiency long before the BASELINE >= 70 % target.)
 - each device then linearizes only its 1/ndev slice of the queries and the
   6x6/6x1 normal equations are combined with ``psum`` — the same
   Schur-style reduced-block psum pattern used by distributed BA
@@ -219,10 +217,10 @@ def collective_traffic_per_align(cfg: GicpConfig, nq: int, ndev: int,
 
     A ring all-reduce of M bytes moves 2 * (ndev-1)/ndev * M < 2*M bytes
     through each device, so per-align traffic is FLAT in device count —
-    the round-4 redesign (the r3 all-gather design received O(ndev) per
-    query: 1.3/3.9/9.2 MB at D = 2/4/8, SCALING_r03). Pinned against the
-    compiled HLO in tests/test_parallel.py::test_collective_traffic_
-    matches_hlo (no all-gather instructions; all-reduce element totals
+    unlike an all-gather design, which receives O(ndev) per query. Pinned
+    against the compiled HLO in
+    tests/test_parallel.py::test_collective_traffic_matches_hlo (no
+    all-gather instructions; all-reduce element totals
     independent of ndev), and reported by scripts/bench_scaling.py next to
     scans/s so the >= 70 % multi-host scaling target carries its
     communication budget.

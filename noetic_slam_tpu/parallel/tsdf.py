@@ -65,12 +65,15 @@ def make_sharded_integrate(cfg: TsdfConfig, mesh, axis: str = "map"):
         keys = _block_key(vx >> 3)
         mine = (keys != _KEY_PAD) & ((keys % ndev) == my)
         w = jnp.where(mine, w, 0.0)
-        local = state._replace(num_blocks=state.num_blocks,
-                               dropped=state.dropped)
-        new = _integrate_samples(cfg, local, pos, sdf, w)
+        # Slots are assigned from this shard's own block count (its filled
+        # directory rows), not the global counter: the global count
+        # overruns a shard's capacity long before the shard is full.
+        local_nb = jnp.sum(state.dir_keys != _KEY_PAD).astype(jnp.int32)
+        new = _integrate_samples(cfg, state._replace(num_blocks=local_nb),
+                                 pos, sdf, w)
         # Global counters: per-device counts summed (each device only ever
         # allocates its own blocks, so the psum is exact).
-        nb = jax.lax.psum(new.num_blocks - state.num_blocks, axis)
+        nb = jax.lax.psum(new.num_blocks - local_nb, axis)
         dr = jax.lax.psum(new.dropped - state.dropped, axis)
         return new._replace(num_blocks=state.num_blocks + nb,
                             dropped=state.dropped + dr)

@@ -1,44 +1,47 @@
 """Persistent XLA compilation cache.
 
-warmup() + first-step compiles cost ~3 minutes per process on the TPU
-(SOAK_r04 warmup_seconds 142-163 s plus the first fused-step compile);
-without a persistent cache every `cli slam` invocation of an identical
-config repays them. Enabling JAX's on-disk compilation cache keys
-executables by (HLO, compile options, backend version), so the second
-process with the same config starts in seconds.
+``SlamSystem.warmup()`` and the first steps compile dozens of programs.
+JAX's on-disk compilation cache keys executables by (HLO, compile options,
+backend version), so a second process with the same config skips them.
 
-Opt-out via NOETIC_SLAM_NO_CACHE=1 (e.g. when benchmarking cold-compile
-behavior); cache location override via NOETIC_SLAM_CACHE.
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when it is set (JAX
+reads the variable itself, and nothing else is set here); otherwise the
+fixed directory ``<checkout>/.jax_cache``. The path must not move between
+runs, or the cache never hits.
+
+``NOETIC_SLAM_NO_CACHE=1`` turns the cache off (cold-compile measurements).
 """
 
 from __future__ import annotations
 
 import os
 
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
+
 _enabled_path: str | None = None
 
 
-def enable(path: str | None = None) -> str | None:
-    """Point JAX at an on-disk compilation cache (idempotent). Returns
-    the cache directory, or None when disabled/unsupported."""
+def enable() -> str | None:
+    """Turn on JAX's persistent compilation cache (idempotent). Returns the
+    cache directory, or None when ``NOETIC_SLAM_NO_CACHE=1``."""
     global _enabled_path
     if os.environ.get("NOETIC_SLAM_NO_CACHE") == "1":
         return None
     if _enabled_path is not None:
         return _enabled_path
-    path = (path or os.environ.get("NOETIC_SLAM_CACHE")
-            or os.path.expanduser("~/.cache/noetic_slam_tpu/jax"))
-    try:
-        os.makedirs(path, exist_ok=True)
-        import jax
+    import jax
 
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_DIR
+        os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # default thresholds skip sub-second compiles and tiny
-        # executables; the closure stack is dozens of medium programs, so
-        # cache everything that took measurable compile time
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.4)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:
-        return None                    # unsupported backend/config: run cold
+    # The default thresholds skip sub-second compiles and tiny executables;
+    # the closure stack is dozens of medium programs, so cache everything
+    # that took measurable compile time.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.4)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     _enabled_path = path
     return path

@@ -5,16 +5,13 @@ terminal dashboard (odom.cc:743,828,1831-1869; runtime/metrics.py provides
 that role here). This module adds the device-side layer the reference never
 needed:
 
-- ``slope_timer``: HONEST device timing. Through an asynchronous dispatch
-  path (and in particular through relayed/deferred runtimes, where even
-  ``jax.block_until_ready`` may not force execution), the only trustworthy
-  wall measurement is: chain fresh data through the computation, end the
-  window by fetching a scalar that data-depends on the result, and take the
-  SLOPE between a short and a long window so fixed round-trip overhead
-  cancels. This utility packages that protocol.
+- ``slope_timer``: per-op device time as the SLOPE between a short and a
+  long window of chained fresh-data ops, each window ended by a dependent
+  fetch, so compile time and the fixed fetch overhead cancel.
 - ``device_trace``: context manager around ``jax.profiler`` producing a
   TensorBoard-loadable trace directory (XLA op-level timeline), with a
-  guard for backends that cannot serve the profiler.
+  guard for backends that cannot serve the profiler; ``top_device_ops``
+  reduces such a trace to the ops that took the most device time.
 - ``StageTimer``: named-stage wall aggregation for host-side pipelines
   (replay loop, packet parsing), printable as a table.
 """
@@ -22,10 +19,12 @@ needed:
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Callable, Dict
 
-__all__ = ["slope_timer", "device_trace", "StageTimer"]
+__all__ = ["slope_timer", "device_trace", "device_busy", "top_device_ops",
+           "StageTimer"]
 
 
 def slope_timer(run_window: Callable[[int], None], *, n1: int = 3,
@@ -67,6 +66,54 @@ def device_trace(logdir: str):
                 jax.profiler.stop_trace()
             except Exception:
                 pass
+
+
+def _device_events(logdir: str):
+    """Kernel events [(name, start_ns, duration_ns)] of the GPU planes
+    (``/device:GPU:*``, one line per stream) in the newest
+    ``jax.profiler`` trace under ``logdir``."""
+    import glob
+
+    from jax.profiler import ProfileData
+
+    paths = sorted(glob.glob(os.path.join(logdir, "plugins", "profile", "*",
+                                          "*.xplane.pb")))
+    if not paths:
+        raise FileNotFoundError(f"no trace under {logdir}")
+    data = ProfileData.from_file(paths[-1])
+    return [(ev.name, ev.start_ns, ev.duration_ns)
+            for plane in data.planes
+            if plane.name.startswith("/device:GPU")
+            for line in plane.lines for ev in line.events]
+
+
+def device_busy(logdir: str):
+    """(busy_ns, window_ns) of the newest trace under ``logdir``: busy is
+    the union of the kernel intervals, the window runs from the first
+    kernel's start to the last one's end. Idle share = 1 - busy/window."""
+    spans = sorted((s, s + d) for _, s, d in _device_events(logdir))
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy, spans[-1][1] - spans[0][0] if spans else 0.0
+
+
+def top_device_ops(logdir: str, n: int = 15):
+    """The ``n`` ops with the most device time in the newest
+    ``jax.profiler`` trace under ``logdir``: [(name, total_ns, count)].
+    Kernels XLA splits one op into (``sort_3__7``) count under the op's
+    name."""
+    import re
+
+    totals: Dict[str, list] = {}
+    for name, _, dur in _device_events(logdir):
+        t = totals.setdefault(re.sub(r"__\d+$", "", name), [0.0, 0])
+        t[0] += dur
+        t[1] += 1
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k, v[0], v[1]) for k, v in ranked]
 
 
 class StageTimer:
@@ -123,52 +170,45 @@ class StageTimer:
 # Roofline accounting (BASELINE "speed of light" quantification)
 # ---------------------------------------------------------------------------
 
-# device_kind prefix -> (bf16 MXU TFLOP/s, HBM GB/s) per chip. Public specs;
-# order matters (first prefix match wins, so "v5 lite" precedes "v5").
-CHIP_PEAKS = (
-    ("TPU v5 lite", (197.0, 819.0)),      # v5e
-    ("TPU v5e", (197.0, 819.0)),
-    ("TPU v5p", (459.0, 2765.0)),
-    ("TPU v5", (459.0, 2765.0)),
-    ("TPU v4", (275.0, 1228.0)),
-    ("TPU v6", (918.0, 1640.0)),          # v6e / Trillium
-)
+# device_kind -> (bf16 dense tensor-core TFLOP/s, f32 non-tensor TFLOP/s,
+# HBM GB/s). NVIDIA H100 SXM data sheet, dense rates without sparsity, at
+# the full 700 W power limit.
+CHIP_PEAKS = {
+    "NVIDIA H100 80GB HBM3": (989.0, 67.0, 3350.0),
+}
 
 
 def chip_peaks():
-    """(bf16_tflops, hbm_gbps) for the attached chip, or None off-TPU."""
+    """((bf16_tflops, f32_tflops, hbm_gbps), device_kind) of the attached
+    device. A device missing from CHIP_PEAKS is an error."""
     import jax
 
     kind = jax.devices()[0].device_kind
-    for prefix, peaks in CHIP_PEAKS:
-        if kind.startswith(prefix):
-            return peaks, kind
-    return None, kind
+    if kind not in CHIP_PEAKS:
+        raise KeyError(f"no peak table for device kind {kind!r}")
+    return CHIP_PEAKS[kind], kind
 
 
 def roofline_report(name: str, seconds: float, flops: float | None = None,
                     bytes_moved: float | None = None) -> str:
     """One line of absolute utilization: achieved GFLOP/s / GB/s and the
-    percent of the chip's MXU / HBM peak (the BASELINE.md requirement that
-    "fast" be measured against the hardware ceiling, not a prior attempt).
+    percent of the card's bf16 tensor-core / HBM peak (the BASELINE.md
+    requirement that "fast" be measured against the hardware ceiling, not
+    a prior attempt).
 
     ``flops``/``bytes_moved`` are per call; the caller states the counting
     basis (e.g. dense-equivalent FLOPs for a pruned kernel) at the call
     site."""
-    peaks, kind = chip_peaks()
+    peaks, _ = chip_peaks()
     parts = [f"{name:<34}"]
     if flops is not None:
         gf = flops / seconds / 1e9
         parts.append(f"{gf:10.1f} GFLOP/s")
-        if peaks:
-            parts.append(f"({gf / (peaks[0] * 1e3) * 100:5.1f}% of "
-                         f"{peaks[0]:.0f}T bf16 MXU)")
+        parts.append(f"({gf / (peaks[0] * 1e3) * 100:5.1f}% of "
+                     f"{peaks[0]:.0f}T bf16 tensor)")
     if bytes_moved is not None:
         gb = bytes_moved / seconds / 1e9
         parts.append(f"{gb:8.1f} GB/s")
-        if peaks:
-            parts.append(f"({gb / peaks[1] * 100:5.1f}% of "
-                         f"{peaks[1]:.0f}GB/s HBM)")
-    if not peaks:
-        parts.append(f"[no peak table for {kind}]")
+        parts.append(f"({gb / peaks[2] * 100:5.1f}% of "
+                     f"{peaks[2]:.0f}GB/s HBM)")
     return " ".join(parts)

@@ -87,10 +87,12 @@ class Sim:
         d = np.linalg.norm(self.world - p_mid, axis=-1)
         cand = np.flatnonzero(d < self.max_range)
         pick = self.world[self.rng.choice(cand, self.n_points)]
-        xyz = np.empty((self.n_points, 3), np.float32)
-        for k in range(self.n_points):
-            R, p = fn(t0 + pt[k])
-            xyz[k] = R.T @ (pick[k] - p)
+        # One pose per firing time (many points share a column's time).
+        times, inv = np.unique(pt, return_inverse=True)
+        poses = [fn(t0 + t) for t in times]
+        R = np.stack([r for r, _ in poses])[inv]          # (N, 3, 3)
+        p = np.stack([q for _, q in poses])[inv]          # (N, 3)
+        xyz = np.einsum("nji,nj->ni", R, pick - p).astype(np.float32)
         return t0, xyz, pt.astype(np.float64)
 
 
@@ -123,6 +125,32 @@ def _numeric_imu(t, dt=1e-4, pose_fn=None):
     a_world = (p2 - 2 * p1 + p0) / dt ** 2
     f = R1.T @ (a_world + np.array([0.0, 0.0, GRAVITY]))
     return w, f
+
+
+def surface_cloud(rng, n: int, extent: float = 40.0) -> np.ndarray:
+    """(n, 3) float32 dense noisy surfaces (ground, four walls, boxes)
+    without duplicate points, Morton-sorted like the odometry submap."""
+    import jax.numpy as jnp
+
+    from noetic_slam_tpu.ops.pointcloud import morton_sort_key
+
+    m = n // 4
+    ground = np.c_[rng.uniform(-extent, extent, (m, 2)), np.zeros(m)]
+    walls = []
+    for s in (-extent, extent):
+        walls.append(np.c_[np.full(m // 2, s),
+                           rng.uniform(-extent, extent, m // 2),
+                           rng.uniform(0, 6, m // 2)])
+        walls.append(np.c_[rng.uniform(-extent, extent, m // 2),
+                           np.full(m // 2, s), rng.uniform(0, 6, m // 2)])
+    rest = n - m - 4 * (m // 2)
+    box = np.c_[rng.uniform(-extent, extent, (rest, 2)),
+                rng.uniform(0, 3, rest)]
+    pts = np.concatenate([ground] + walls + [box]).astype(np.float32)
+    pts += rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+    key = np.asarray(morton_sort_key(jnp.asarray(pts),
+                                     jnp.ones((n,), bool), 1.0))
+    return pts[np.argsort(key, kind="stable")]
 
 
 def make_world(rng, extent=30.0, n=20000) -> np.ndarray:

@@ -4,7 +4,7 @@ B = 1/2/4/8 synthetic sequences advance in LOCKSTEP through one vmapped
 odometry+TSDF step on ONE chip (runtime/multi.MultiSequencePipeline —
 the `cli batch` path). This is the throughput-scaling claim measurable
 without multi-chip hardware: per-sequence cost amortizes because the
-batched step keeps the MXU fed with B x the work per dispatch while the
+batched step gives the device B x the work per dispatch while the
 host/dispatch overhead stays ~flat.
 
 For each B: one compile pass (discarded), then a fresh pipeline re-run

@@ -7,10 +7,10 @@ doubling ladder up to the available devices, runs B = D sequences and
 slope-times the steady state, reporting total scans/s and the efficiency
 vs the single-device rate.
 
-On a real pod slice this IS the scaling run; on the virtual CPU mesh
+On four GPUs this IS the scaling run; on the virtual CPU mesh
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu) it
 validates the harness + shardings end-to-end (CPU "efficiency" is not a
-TPU number — virtual devices share host cores).
+device number — virtual devices share host cores).
 
 Prints one JSON line per D plus a summary line.
 

@@ -1,7 +1,7 @@
-"""Drift analysis of a soak trajectory (VERDICT r3 #3).
+"""Drift analysis of a soak trajectory.
 
-Reads the trajectory artifact the soak harness saves (SOAK_TRAJ, default
-/tmp/soak_traj.npz: est trajectory + gt) plus the soak JSON (closure log,
+Reads the trajectory artifact the soak harness saves (SOAK_TRAJ: est
+trajectory + gt) plus the soak JSON (closure log,
 descriptor log stats) and writes a markdown report locating WHERE error
 enters the run:
 
@@ -15,8 +15,7 @@ enters the run:
   error onset with the motion regime.
 
 Usage:
-    python scripts/drift_analysis.py SOAK_rNN_km.json /tmp/soak_traj.npz \
-        [DRIFT_rNN.md]
+    python scripts/drift_analysis.py SOAK_JSON TRAJ_NPZ OUT_MD
 """
 
 from __future__ import annotations
@@ -41,9 +40,9 @@ def aligned_errors(traj, gt_stamps, gt_pos):
 
 
 def main():
-    soak_json = sys.argv[1] if len(sys.argv) > 1 else "SOAK_r04_km.json"
-    traj_npz = sys.argv[2] if len(sys.argv) > 2 else "/tmp/soak_traj.npz"
-    out_md = sys.argv[3] if len(sys.argv) > 3 else "DRIFT_r04.md"
+    if len(sys.argv) != 4:
+        raise SystemExit("usage: drift_analysis.py SOAK_JSON TRAJ_NPZ OUT_MD")
+    soak_json, traj_npz, out_md = sys.argv[1:4]
 
     with open(soak_json) as f:
         soak = json.load(f)

@@ -58,10 +58,11 @@ def still_then(pose_fn, hold: float, ramp: float = 1.0):
 def write_fixture(out: str, duration: float = 8.0, hold: float = 3.5,
                   n_points: int = 2048, seed: int = 42,
                   imu_hz: float = 100.0, scan_hz: float = 10.0,
-                  pose_fn=None) -> dict:
+                  pose_fn=None, radar: bool = True) -> dict:
     """``pose_fn`` overrides the driving trajectory (e.g.
     synthetic.loop_pose_of for a closed loop); the stationary calibration
-    hold is prepended either way."""
+    hold is prepended either way. ``radar=False`` skips the radar PNGs
+    (the only part that needs PIL)."""
     fn = still_then(pose_fn or synthetic._pose_of, hold)
     sim = synthetic.make_sim(duration=hold + duration, imu_hz=imu_hz,
                              scan_hz=scan_hz, n_points=n_points,
@@ -136,6 +137,16 @@ def write_fixture(out: str, duration: float = 8.0, hold: float = 3.5,
     # (directory layout + name convention, ROSThread.cpp:262-284; content
     # is synthetic — the player only moves the images, it never parses
     # them).
+    n_radar = 0
+    if radar:
+        n_radar = _write_radar(sd, seed, hold, duration)
+
+    return {"out": out, "n_scans": n_scans, "n_imu": len(sim.imu_stamps),
+            "n_gps": n_gps, "n_radar": n_radar,
+            "duration_s": hold + duration, "n_points": n_points}
+
+
+def _write_radar(sd: str, seed: int, hold: float, duration: float) -> int:
     from PIL import Image
 
     radar_dir = os.path.join(sd, "radar", "polar")
@@ -149,10 +160,7 @@ def write_fixture(out: str, duration: float = 8.0, hold: float = 3.5,
         Image.fromarray(img, mode="L").save(
             os.path.join(radar_dir, f"{ns}.png"))
         n_radar += 1
-
-    return {"out": out, "n_scans": n_scans, "n_imu": len(sim.imu_stamps),
-            "n_gps": n_gps, "n_radar": n_radar,
-            "duration_s": hold + duration, "n_points": n_points}
+    return n_radar
 
 
 def main():

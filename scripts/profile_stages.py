@@ -1,8 +1,8 @@
 """Per-stage device profiling of the odometry step at production shapes.
 
 Each stage is wrapped as a chained scalar->scalar jitted function: a scalar
-carry perturbs the stage inputs (fresh data every call, so nothing replays
-from a relay result cache) and the stage result folds back into the carry
+carry perturbs the stage inputs (fresh data every call, so nothing is
+served from a cache) and the stage result folds back into the carry
 (data dependency forces real sequential execution). slope_timer then yields
 honest per-call milliseconds with fixed round-trip overhead cancelled.
 

@@ -14,7 +14,7 @@ harness runs the real product surface end-to-end instead:
      global_pose.csv (the `cli eval` math), plus closure/archive counters
      scraped from the run.
 
-Artifact: SOAK_r05_cli.json. Run on the chip (~10 min incl. fixture gen):
+Artifact: SOAK_r05_cli.json. Run on the GPU:
     python scripts/soak_cli.py
 Knobs: CLI_SOAK_SCANS (default 4000), CLI_SOAK_DIR, CLI_SOAK_OUT.
 """

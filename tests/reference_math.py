@@ -145,3 +145,106 @@ def geo_update_ref(state, lidar_p, lidar_q, dt, geo):
     q = q + dt * geo.Kq * qcorr
     q = q / np.linalg.norm(q)
     return {"q": q, "p": p, "v": v, "ba": ba, "bg": bg}
+
+
+# ---------------------------------------------------------------------------
+# Block-hashed dense maps (models/tsdf.py, models/occupancy.py)
+# ---------------------------------------------------------------------------
+
+def _block_keys_ref(b):
+    """(S, 3) int block coords -> (packed keys as int32 values, in-range
+    mask). 11+11+10 bits, the models/tsdf._block_key layout, which wraps
+    into the sign bit; sorting follows the int32 order."""
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    ok = ((bx >= -1024) & (bx < 1024) & (by >= -1024) & (by < 1024)
+          & (bz >= -512) & (bz < 512))
+    key = ((bz + 512) << 22) | ((by + 1024) << 11) | (bx + 1024)
+    return (key + 2 ** 31) % 2 ** 32 - 2 ** 31, ok
+
+
+def route_blocks_ref(directory, vx, active, scan_block_cap, max_blocks):
+    """Per-scan block gating shared by both dense maps.
+
+    ``directory``: dict block key -> payload slot, updated in place. The
+    scan's distinct blocks are taken in key order; only the first
+    ``scan_block_cap`` are kept, and unseen ones get the next free slot
+    while the directory has room. Returns (mask of samples that land in a
+    kept, allocated block; number of blocks dropped this scan)."""
+    keys, ok = _block_keys_ref(vx >> 3)
+    live = active & ok
+    uniq = np.unique(keys[live])
+    kept = uniq[:scan_block_cap]
+    dropped = len(uniq) - len(kept)
+    for k in kept.tolist():
+        if k not in directory:
+            if len(directory) < max_blocks:
+                directory[k] = len(directory)
+            else:
+                dropped += 1
+    landed = np.asarray([k in directory for k in kept.tolist()], bool)
+    keep = live & np.isin(keys, kept[landed])
+    return keep, dropped
+
+
+def _voxel_sums(vx, keep, *vals):
+    """Per-voxel sums of ``vals`` over the kept samples:
+    (voxel tuples, [sums per val])."""
+    v = vx[keep]
+    uniq, inv = np.unique(v, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    sums = [np.bincount(inv, weights=np.asarray(x, np.float64)[keep],
+                        minlength=len(uniq)) for x in vals]
+    return [tuple(u) for u in uniq.tolist()], sums
+
+
+def tsdf_fuse_ref(voxels, directory, pos, sdf, w, voxel_size, truncation,
+                  max_weight, scan_block_cap, max_blocks):
+    """One scan of projective TSDF fusion, clamped weighted mean per voxel:
+    d' = (W d + sum w sdf) / (W + sum w), W' = min(W + sum w, max_weight).
+    ``voxels``: dict voxel (ix, iy, iz) -> (W, d), updated in place.
+    Returns the number of blocks dropped."""
+    vx = np.floor(pos / np.float32(voxel_size)).astype(np.int64)
+    keep, dropped = route_blocks_ref(directory, vx, w != 0,
+                                     scan_block_cap, max_blocks)
+    sdf_c = np.clip(sdf, -truncation, truncation)
+    keys, (sw, swd) = _voxel_sums(vx, keep, w, w * sdf_c)
+    for k, a, b in zip(keys, sw, swd):
+        W, d = voxels.get(k, (0.0, 0.0))
+        d = (W * d + b) / (W + a)
+        voxels[k] = (min(W + a, max_weight), d)
+    return dropped
+
+
+def occupancy_fuse_ref(logodds, directory, pos, delta, voxel_size, l_min,
+                       l_max, scan_block_cap, max_blocks):
+    """One scan of additive log-odds fusion clamped at scan granularity:
+    L' = clip(L + sum delta, l_min, l_max). ``logodds``: dict voxel ->
+    L, updated in place. Returns the number of blocks dropped."""
+    vx = np.floor(pos / np.float32(voxel_size)).astype(np.int64)
+    keep, dropped = route_blocks_ref(directory, vx, delta != 0,
+                                     scan_block_cap, max_blocks)
+    keys, (sd,) = _voxel_sums(vx, keep, delta)
+    for k, s in zip(keys, sd):
+        logodds[k] = float(np.clip(logodds.get(k, 0.0) + s, l_min, l_max))
+    return dropped
+
+
+def dense_map_voxels(dir_keys, dir_slots, payload):
+    """Host view of a block-hashed map state: dict voxel (ix, iy, iz) ->
+    payload row entries, for every voxel of every allocated block.
+    ``payload``: tuple of (C, 512) arrays."""
+    out = {}
+    pad = np.iinfo(np.int32).max
+    iv = np.arange(512)
+    intra = np.stack([iv & 7, (iv >> 3) & 7, (iv >> 6) & 7], -1)
+    for key, slot in zip(np.asarray(dir_keys).tolist(),
+                         np.asarray(dir_slots).tolist()):
+        if key == pad:
+            continue
+        b = np.array([(key & 0x7FF) - 1024, ((key >> 11) & 0x7FF) - 1024,
+                      ((key >> 22) & 0x3FF) - 512])
+        vox = b * 8 + intra
+        rows = [np.asarray(p)[slot] for p in payload]
+        for j in range(512):
+            out[tuple(vox[j].tolist())] = tuple(r[j] for r in rows)
+    return out

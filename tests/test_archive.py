@@ -2,7 +2,7 @@
 
 Long-run correctness layer (runtime/archive.py): the reference accumulates
 every deskewed cloud unbounded (dliomapping.cpp:41-99) and never evicts
-keyframes (odom.cc:1517-1598); the TPU device state is fixed-capacity, so
+keyframes (odom.cc:1517-1598); the device state is fixed-capacity, so
 the archive carries the unbounded part on the host and corrects the dense
 map incrementally after loop closures.
 """

@@ -22,8 +22,9 @@ def test_endurance_short(tmp_path):
     if native.load() is None:
         pytest.skip("native toolchain unavailable")
     out = tmp_path / "endurance.json"
+    # CPU-only child: one JAX process per GPU at most.
     env = dict(os.environ, ENDURANCE_SECS="8", ENDURANCE_OUT=str(out),
-               ENDURANCE_PORT="47951")
+               ENDURANCE_PORT="47951", JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, os.path.join(_REPO, "scripts", "endurance.py")],
         env=env, cwd=_REPO, capture_output=True, text=True, timeout=240)

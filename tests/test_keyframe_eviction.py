@@ -1,7 +1,7 @@
 """Keyframe-store capacity policy: spatial-redundancy eviction.
 
 The reference's keyframe store grows without bound (odom.cc:1517-1598); the
-TPU build's store is a fixed-capacity device array. Past saturation the old
+device build's store is a fixed-capacity device array. Past saturation the old
 behavior silently dropped NEW keyframes — odometry then degrades as the
 vehicle leaves the mapped region. The policy now evicts the most spatially
 redundant resident keyframe (smallest nearest-neighbor distance, newest few

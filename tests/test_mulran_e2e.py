@@ -105,6 +105,33 @@ def test_mulran_cli_slam(tmp_path, capsys):
     assert (out / "trajectory.tum").exists()
 
 
+def test_cli_slam_loop_radius(tmp_path, monkeypatch):
+    """`cli slam` keeps SlamSystem's 3 m proximity radius unless
+    `--loop-radius` sets another."""
+    import inspect
+
+    from noetic_slam_tpu import cli
+    from noetic_slam_tpu.runtime import slam
+
+    sig = inspect.signature(slam.SlamSystem)
+    assert sig.parameters["loop_radius"].default == 3.0
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_system(cfg, **kw):
+        seen.append(kw["loop_radius"])
+        raise Stop
+
+    monkeypatch.setattr(slam, "SlamSystem", fake_system)
+    for extra in ([], ["--loop-radius", "7.5"]):
+        with pytest.raises(Stop):
+            cli.main(["slam", "--mulran", FIXTURE, "--out",
+                      str(tmp_path / "out")] + extra)
+    assert seen == [3.0, 7.5]
+
+
 @pytest.mark.slow
 def test_mulran_loop_closure_improves_ate(tmp_path):
     """Loop-closure end-to-end through the REAL MulRan ingest path: a

@@ -2,7 +2,7 @@
 
 The reference interleaves IMU-rate ``propagateState`` (on every IMU
 callback, odom.cc:1248-1284) and scan-rate ``updateState`` (when GICP
-completes, odom.cc:1286-1344) by WALL CLOCK under geo.mtx. The TPU step
+completes, odom.cc:1286-1344) by WALL CLOCK under geo.mtx. The device step
 reorders this into: batch-propagate the scan's IMU window through the
 sweep-end boundary sample, then apply the scan-rate update
 (models/odometry.py step). This file pins that reordering against a

@@ -3,6 +3,7 @@ free-space carving, loop-closure rebuild, and the fused SLAM-step path."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from noetic_slam_tpu.config.params import OccupancyConfig
 from noetic_slam_tpu.models import occupancy as occ
@@ -163,63 +164,56 @@ def test_slam_system_with_occupancy_backend():
                                       np.asarray(slam.tsdf.logodds))
 
 
-def test_kernel_matches_xla_occupancy():
-    """Pallas log-odds accumulate (interpret mode) vs the XLA scatter+clamp
-    path — both routes of occupancy._integrate_deltas must be identical."""
-    cfg = small_cfg(max_blocks=256, scan_block_cap=64)
+def _ring_scans():
     rng = np.random.default_rng(7)
-    st_k = occ.init_occupancy(cfg)
-    st_x = occ.init_occupancy(cfg)
+    scans = []
     for i in range(3):
         ang = rng.uniform(0, 2 * np.pi, 96)
         r = 4.0 + rng.normal(scale=0.05, size=96)
         z = rng.uniform(-0.5, 1.0, 96)
-        pts = jnp.asarray(np.stack([r * np.cos(ang), r * np.sin(ang), z],
-                                   -1).astype(np.float32) + 0.01 * i)
-        valid = jnp.ones((96,), bool)
-        pos, delta = occ._beam_samples(cfg, pts, valid, jnp.zeros(3))
-        st_k = occ._integrate_deltas(cfg, st_k, pos, delta,
-                                     use_kernel=True, interpret=True)
-        st_x = occ._integrate_deltas(cfg, st_x, pos, delta,
-                                     use_kernel=False)
-    np.testing.assert_array_equal(np.asarray(st_k.dir_keys),
-                                  np.asarray(st_x.dir_keys))
-    np.testing.assert_array_equal(np.asarray(st_k.dir_slots),
-                                  np.asarray(st_x.dir_slots))
-    assert int(st_k.num_blocks) == int(st_x.num_blocks) > 4
-    assert int(st_k.dropped) == int(st_x.dropped)
-    np.testing.assert_allclose(np.asarray(st_k.logodds),
-                               np.asarray(st_x.logodds),
-                               rtol=1e-5, atol=1e-5)
-    # clamp engaged somewhere (hits accumulate past l_max after 3 scans?
-    # force it: 6 more passes on the same wall)
-    for i in range(6):
-        pos, delta = occ._beam_samples(cfg, pts, valid, jnp.zeros(3))
-        st_k = occ._integrate_deltas(cfg, st_k, pos, delta,
-                                     use_kernel=True, interpret=True)
-        st_x = occ._integrate_deltas(cfg, st_x, pos, delta,
-                                     use_kernel=False)
-    assert np.asarray(st_x.logodds).max() >= cfg.l_max - 1e-5
-    np.testing.assert_allclose(np.asarray(st_k.logodds),
-                               np.asarray(st_x.logodds),
-                               rtol=1e-5, atol=1e-5)
+        scans.append(np.stack([r * np.cos(ang), r * np.sin(ang), z],
+                              -1).astype(np.float32) + 0.01 * i)
+    # the same wall six more times: hits accumulate past l_max
+    return scans + [scans[-1]] * 6
 
 
-def test_kernel_capacity_overflow_parity():
-    """Scan touching more blocks than scan_block_cap: both paths drop the
-    same samples and count them identically."""
-    cfg = small_cfg(max_blocks=64, scan_block_cap=8, miss_samples=2)
-    rng = np.random.default_rng(11)
-    pts = jnp.asarray(rng.uniform(-12, 12, (128, 3)).astype(np.float32))
-    valid = jnp.ones((128,), bool)
-    pos, delta = occ._beam_samples(cfg, pts, valid, jnp.zeros(3))
-    st_k = occ._integrate_deltas(cfg, occ.init_occupancy(cfg), pos, delta,
-                                 use_kernel=True, interpret=True)
-    st_x = occ._integrate_deltas(cfg, occ.init_occupancy(cfg), pos, delta,
-                                 use_kernel=False)
-    assert int(st_k.dropped) == int(st_x.dropped) > 0
-    np.testing.assert_array_equal(np.asarray(st_k.dir_keys),
-                                  np.asarray(st_x.dir_keys))
-    np.testing.assert_allclose(np.asarray(st_k.logodds),
-                               np.asarray(st_x.logodds),
-                               rtol=1e-5, atol=1e-5)
+OCC_CASES = {
+    "ring_with_clamp": (small_cfg(max_blocks=256, scan_block_cap=64),
+                        _ring_scans()),
+    "capacity_overflow": (
+        small_cfg(max_blocks=64, scan_block_cap=8, miss_samples=2),
+        [np.random.default_rng(11).uniform(-12, 12, (128, 3)).astype(
+            np.float32)]),
+}
+
+
+@pytest.mark.parametrize("case", list(OCC_CASES))
+def test_integrate_deltas_matches_numpy_reference(case):
+    """occupancy._integrate_deltas (sort, block gating, scatter-add, clamp)
+    against the independent NumPy log-odds reference."""
+    from reference_math import dense_map_voxels, occupancy_fuse_ref
+
+    cfg, scans = OCC_CASES[case]
+    st = occ.init_occupancy(cfg)
+    logodds, directory, dropped = {}, {}, 0
+    for pts in scans:
+        valid = jnp.ones((pts.shape[0],), bool)
+        pos, delta = occ._beam_samples(cfg, jnp.asarray(pts), valid,
+                                       jnp.zeros(3))
+        st = occ._integrate_deltas(cfg, st, pos, delta)
+        dropped += occupancy_fuse_ref(
+            logodds, directory, np.asarray(pos), np.asarray(delta),
+            cfg.voxel_size, cfg.l_min, cfg.l_max, cfg.scan_block_cap,
+            cfg.max_blocks)
+
+    assert int(st.num_blocks) == len(directory)
+    assert int(st.dropped) == dropped
+    got = dense_map_voxels(st.dir_keys, st.dir_slots, (st.logodds,))
+    assert logodds.keys() <= got.keys()
+    for k, (L,) in got.items():
+        np.testing.assert_allclose(L, logodds.get(k, 0.0), rtol=1e-5,
+                                   atol=1e-5)
+    if case == "ring_with_clamp":
+        assert max(logodds.values()) == cfg.l_max
+    else:
+        assert dropped > 0

@@ -178,6 +178,54 @@ def test_sharded_tsdf_matches_single_device(rng, mesh8):
     assert set1 == set2
 
 
+def test_sharded_tsdf_outgrows_one_shard(rng, mesh8):
+    """A map larger than one shard's capacity (max_blocks / 8), built over
+    two scans: each shard numbers payload slots from its own block count,
+    so the counters stay sane and every voxel matches single-device
+    integrate."""
+    from noetic_slam_tpu.config.params import TsdfConfig
+    from noetic_slam_tpu.models import tsdf as T
+    from noetic_slam_tpu.parallel.tsdf import (gather_sharded_state,
+                                               init_sharded_tsdf,
+                                               make_sharded_integrate)
+
+    cfg = TsdfConfig(voxel_size=0.1, truncation=0.3, max_blocks=4096,
+                     space_carving=False, max_range=30.0)
+    n = 12000
+    origin = jnp.zeros(3)
+    valid = jnp.ones((n,), bool)
+    # a 24 x 24 m floor, its two halves seen by two scans (blocks shard
+    # by x, so the floor spreads over every shard)
+    scans = [np.c_[rng.uniform(lo, lo + 12, n), rng.uniform(-12, 12, n),
+                   np.full(n, -1.5)].astype(np.float32)
+             for lo in (-12.0, 0.0)]
+
+    ref = T.init_tsdf(cfg)
+    st = init_sharded_tsdf(cfg, mesh8)
+    integ = make_sharded_integrate(cfg, mesh8)
+    for pts in scans:
+        ref = T.integrate(cfg, ref, jnp.asarray(pts), valid, origin)
+        st = integ(st, jnp.asarray(pts), valid, origin)
+    merged = gather_sharded_state(cfg, st, mesh8)
+
+    assert int(ref.num_blocks) > 2 * cfg.max_blocks // 8
+    assert int(ref.dropped) == 0 and int(merged.dropped) == 0
+    assert int(merged.num_blocks) == int(ref.num_blocks)
+
+    def voxels(s):
+        keys, slots = np.asarray(s.dir_keys), np.asarray(s.dir_slots)
+        ok = keys != np.iinfo(np.int32).max
+        w = np.asarray(s.weight).reshape(-1, 512)
+        ws = np.asarray(s.wsum).reshape(-1, 512)
+        return {k: (w[i], ws[i]) for k, i in zip(keys[ok], slots[ok])}
+
+    a, b = voxels(ref), voxels(merged)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(b[k][0], a[k][0], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(b[k][1], a[k][1], rtol=1e-5, atol=1e-5)
+
+
 def _align_hlo_reduce_stats(ndev: int, nq: int, nt: int):
     """(all-gather count, total all-reduce elements) of the compiled
     sharded-align SPMD program."""

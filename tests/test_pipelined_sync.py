@@ -1,8 +1,8 @@
 """Pipelined keyframe-sync protocol (runtime.slam sync_dispatch /
 sync_pipelined / _gather_sync) and the IMU-rate pose extrapolator.
 
-The r4 sync blocked on two device fetches per batch (31 % of km-soak
-wall time, VERDICT r4); the r5 protocol coalesces them into one gather
+The blocking sync waits on two device fetches per batch; the pipelined
+protocol coalesces them into one gather
 program whose D2H copies overlap the next batch's device work. These
 tests pin:
 

@@ -3,7 +3,7 @@
 The reference selects submap keyframes as distance-kNN ∪ convex-hull-kNN ∪
 concave-hull-kNN (buildSubmap, reference src/dlio/src/dlio/odom.cc:1654-1705;
 computeConvexHull/computeConcaveHull odom.cc:1439-1515, concave alpha =
-keyframe_thresh_dist odom.cc:86,1622). The TPU build replaces the PCL hulls
+keyframe_thresh_dist odom.cc:86,1622). This build replaces the PCL hulls
 with device-computed membership tests:
 
 - convex: support points over a Fibonacci direction set,
